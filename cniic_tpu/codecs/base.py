@@ -31,9 +31,9 @@ class Codec(abc.ABC):
     def encode_batch(self, imgs) -> list[bytes]:
         """Encode a batch of images.
 
-        Default: sequential loop. Codecs with lane-/batch-parallel device
-        paths (approximate RLE, k-means families) override this to amortize
-        dispatch and fill the vector lanes. A batched codec may return an
+        Default: sequential loop. Codecs with batch-parallel device paths
+        (the k-means families) override this to amortize dispatch and fill
+        the device. A batched codec may return an
         Exception instance in place of a stream for an image that failed
         (e.g. the k-means active-cluster floor) so the rest of the batch
         survives; the runner records it as that image's failure.
@@ -50,9 +50,9 @@ class Codec(abc.ABC):
         """Whether the runner's software pipeline (encode group N+1 in a
         worker thread while group N verifies) helps this codec. True only
         for codecs with long device stages whose waits the host thread can
-        hide in; pure-host codecs LOSE to the thread handoff on a one-vCPU
-        host (measured r3: voronoi 1.42x faster, cluster-colors 1.19x,
-        hufman 0.84x — BENCH_NOTES.md). CNIIC_PIPELINE=1/0 overrides."""
+        hide in; pure-host codecs lost to the thread handoff on a one-core
+        host. Not re-measured on the GPU host. CNIIC_PIPELINE=1/0
+        overrides."""
         return False
 
     def __repr__(self) -> str:  # pragma: no cover

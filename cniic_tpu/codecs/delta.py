@@ -4,9 +4,11 @@ Hilbert-order traversal, per-channel differences of consecutive pixels with
 an implicit [0,0,0] predecessor, Huffman coding of the difference triplets.
 Leaf wire format: 3 x i16 LE = 6 bytes, no length prefix (ser.rs:188-195).
 
-TPU mapping: traversal gather + diff are vectorized transforms; diff
+Implementation: traversal gather + diff run in one native pass; the diff
 alphabet fits in 27-bit packed keys for the unique pass; encode bit packing
-is the device kernel; decode is Huffman walk + prefix-sum + inverse gather.
+is the native C packer (or the XLA device packer behind
+CNIIC_DEVICE_BITPACK=1); decode is Huffman walk + prefix-sum + inverse
+gather.
 """
 
 from __future__ import annotations

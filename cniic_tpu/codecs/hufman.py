@@ -5,10 +5,11 @@ leaves, then the MSB-first Huffman payload over the row-major pixel stream
 (hufc.rs:12-17). The symbol alphabet is the set of 24-bit colors actually
 present in the image.
 
-TPU mapping: histogram + per-pixel symbol ids come from one vectorized
-unique pass; the per-pixel hot loop (code gather + bit packing) runs on the
-device (ops/bitpack.py); the tree build is host-side (tiny); decode is the
-native bit-serial walker.
+Implementation: histogram + per-pixel symbol ids come from one native
+radix pass; the per-pixel hot loop (code gather + bit packing) runs in the
+native C packer (the XLA device packer, ops/bitpack.py, is behind
+CNIIC_DEVICE_BITPACK=1); the tree build is host-side (tiny); decode is the
+native prefix-table decoder.
 """
 
 from __future__ import annotations

@@ -32,7 +32,7 @@ honest extent of VERDICT r2 #3 attainable here.
 
 The curve is generated by the native C routine (cniic_native.c) and cached
 per (W, H); a pure-Python twin of the same recursion exists for
-cross-checking. On the TPU side the traversal is just a gather with the
+cross-checking. On the array side the traversal is just a gather with the
 cached index vector — see :func:`scan_indices`.
 """
 

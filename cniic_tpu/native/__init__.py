@@ -1,16 +1,21 @@
 """ctypes bindings to the native runtime (see ``cniic_native.c``).
 
-The shared library is compiled on demand with the system C compiler and
-cached next to the source; a rebuild happens whenever the source is newer
-than the binary. All entry points release the GIL for the duration of the
-call (plain ctypes semantics), so host-side codec work can overlap with TPU
-dispatch from other threads.
+The shared library is compiled on first use with the system C compiler
+into ``build/`` beside the source (listed in .gitignore). Its file name
+carries a hash of the source, the compiler and its flags, and the host
+CPU's model and feature flags, so a library built with ``-march=native``
+on one host is never loaded on another: a different host computes a
+different name and builds its own. All entry points release the GIL for
+the duration of the call (plain ctypes semantics), so host-side codec work
+can overlap with device dispatch from other threads.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
@@ -18,56 +23,79 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "cniic_native.c")
-_DEFAULT_LIB = os.path.join(_HERE, "libcniic_native.so")
-_LIB = _DEFAULT_LIB  # resolved (with CNIIC_NATIVE_LIB) once, inside _load()
+_BUILD_DIR = os.path.join(_HERE, "build")
+# -march=native unlocks the AVX2 candidate pre-filter in the zip-back scan;
+# the build key pins the library to the host that compiled it
+_FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-fvisibility=hidden"]
 _lock = threading.Lock()
 _lib = None
 
 
-def _build() -> None:
+def _cpu_id() -> str:
+    """The host CPU's model and feature flags (what -march=native reads)."""
+    try:
+        with open("/proc/cpuinfo") as fh:
+            lines = fh.read().splitlines()
+    except OSError:
+        return f"{platform.machine()} {platform.processor()}"
+    keep = ("model name", "flags", "Features", "CPU implementer", "CPU part")
+    first = {}
+    for line in lines:
+        key, _, val = line.partition(":")
+        key = key.strip()
+        if key in keep and key not in first:
+            first[key] = val.strip()
+    return f"{platform.machine()} " + " | ".join(
+        f"{k}={first[k]}" for k in keep if k in first)
+
+
+def build_key(source: bytes, cc: str, flags, cpu: str) -> str:
+    """Hash of everything the compiled library depends on."""
+    h = hashlib.sha256()
+    for part in (source, cc.encode(), " ".join(flags).encode(), cpu.encode()):
+        h.update(len(part).to_bytes(8, "little"))
+        h.update(part)
+    return h.hexdigest()[:20]
+
+
+def library_path() -> str:
+    """Where this host's build of the current source lives."""
+    cc = os.environ.get("CC", "cc")
+    with open(_SRC, "rb") as fh:
+        key = build_key(fh.read(), cc, _FLAGS, _cpu_id())
+    return os.path.join(_BUILD_DIR, f"libcniic_native-{key}.so")
+
+
+def _build(path: str) -> None:
     # compile to a per-pid temp path and os.replace into place: concurrent
     # fresh processes otherwise race and one can dlopen a half-written .so
-    # (the same tmp+rename discipline as hilbert.py's disk cache)
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
-    base = [
-        os.environ.get("CC", "cc"),
-        "-O3",
-        "-fPIC",
-        "-shared",
-        "-fvisibility=hidden",
-        "-o",
-        tmp,
-        _SRC,
-        "-lm",
-    ]
-    # -march=native unlocks the AVX2 candidate pre-filter in the zip-back
-    # scan; the library is built per machine, so native codegen is safe.
-    # Fall back to the portable build if the compiler rejects the flag.
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [os.environ.get("CC", "cc"), *_FLAGS, "-o", tmp, _SRC, "-lm"]
     try:
-        subprocess.run(base[:2] + ["-march=native"] + base[2:], check=True,
-                       capture_output=True)
+        subprocess.run(cmd, check=True, capture_output=True)
     except subprocess.CalledProcessError:
-        subprocess.run(base, check=True, capture_output=True)
-    os.replace(tmp, _LIB)
+        # a compiler that rejects -march=native gets the portable build
+        cmd.remove("-march=native")
+        subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, path)
 
 
 def _load() -> ctypes.CDLL:
-    global _lib, _LIB
+    global _lib
     with _lock:
         if _lib is not None:
             return _lib
         # CNIIC_NATIVE_LIB points at an alternate prebuilt library (the
         # ASan fuzz build, `make asan-fuzz`), loaded as-is and never
-        # rebuilt. Resolved HERE — once, at first use — so both the path
-        # and the rebuild decision see the same value even if the env var
-        # was set after import (monkeypatch.setenv style).
-        override = os.environ.get("CNIIC_NATIVE_LIB")
-        _LIB = override or _DEFAULT_LIB
-        if not override and (
-                not os.path.exists(_LIB)
-                or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-            _build()
-        lib = ctypes.CDLL(_LIB)
+        # rebuilt. Resolved HERE — once, at first use — so it sees the
+        # value even if the env var was set after import.
+        path = os.environ.get("CNIIC_NATIVE_LIB")
+        if not path:
+            path = library_path()
+            if not os.path.exists(path):
+                _build(path)
+        lib = ctypes.CDLL(path)
 
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i32p = ctypes.POINTER(ctypes.c_int32)
@@ -150,6 +178,9 @@ def _load() -> ctypes.CDLL:
         lib.delta_unpack.restype = ctypes.c_int
         lib.rle_unframe_scatter.argtypes = [u8p, i64, i64p, i64, u8p]
         lib.rle_unframe_scatter.restype = ctypes.c_int
+
+        lib.png_unfilter.argtypes = [u8p, i64, i64, i64, u8p]
+        lib.png_unfilter.restype = ctypes.c_int
 
         lib.mse_sum_u8.argtypes = [u8p, u8p, i64]
         lib.mse_sum_u8.restype = ctypes.c_uint64
@@ -623,3 +654,18 @@ def approx_rle_encode(rgb: np.ndarray, allow: float):
     colors = np.empty((n, 3), dtype=np.uint8)
     nrec = lib.approx_rle_encode(_as_u8p(rgb), n, float(allow), _as_u8p(counts), _as_u8p(colors))
     return counts[:nrec].copy(), colors[:nrec].copy()
+
+
+def png_unfilter(raw, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Reconstruct h PNG scanlines of `stride` bytes from the inflated
+    IDAT stream `raw` (each line led by its filter-type byte); bpp is the
+    byte distance to the previous pixel. Returns uint8[h, stride]."""
+    lib = _load()
+    raw = np.frombuffer(raw, dtype=np.uint8)
+    if raw.size != h * (stride + 1):
+        raise ValueError(f"PNG image data is {raw.size} bytes, expected "
+                         f"{h * (stride + 1)}")
+    out = np.empty((h, stride), dtype=np.uint8)
+    if lib.png_unfilter(_as_u8p(raw), h, stride, bpp, _as_u8p(out)) != 0:
+        raise ValueError("PNG scanline has an unknown filter type")
+    return out

@@ -1299,10 +1299,9 @@ EXPORT void delta_keys_gather(const uint8_t *rgb, const int64_t *perm,
 
 /* MSB-first bit packer (bit.rs:209-253 semantics, zero-padded tail).
  * ids index the codebook; returns bytes written. ~2-3 ns/symbol with
- * the 64-bit block flush — measured
- * 20x the XLA segment-sum scatter path end-to-end on the bench host (TPU
- * scatters run ~30M elem/s, and the id upload disappears entirely), which
- * is why entropy coding lives on the host in this design (BENCH_NOTES.md).
+ * the 64-bit block flush. The id upload of the XLA segment-sum scatter
+ * path (ops/bitpack.py) disappears entirely, which is why entropy coding
+ * lives on the host in this design.
  */
 EXPORT int64_t pack_bits(const uint64_t *codes, const uint32_t *lens,
                          const int32_t *ids, int64_t n, uint8_t *out) {
@@ -1637,7 +1636,7 @@ static int64_t hist_u32_radix(const uint32_t *keys, int64_t n,
     /* 12-bit digits: 24-bit color keys sort in 2 passes instead of 3 and
      * the 4096-counter table still lives in L1. (Wider digits measured a
      * wash: 2 x 14-bit over the delta codec's 27-bit keys saved a pass
-     * but the 16K-way scatter lost the saving — BENCH_NOTES r4.) */
+     * but the 16K-way scatter lost the saving.) */
     int64_t *hist = (int64_t *)esc_get(ESC_H16, 4096 * sizeof(int64_t));
     if (!a || !b || !hist) return -1;
 
@@ -1811,7 +1810,7 @@ static int64_t hist_rgb24_radix_u32(const uint8_t *rgb, int64_t n,
  *
  * r5 re-measurement: the r4 single-tier table (2^16 slots, bail at 16k
  * uniques) assumed a 512 KB L2; this host has a 2 MB L2 + large L3, and a
- * probe over real key streams (BENCH_NOTES "adaptive hash histogram")
+ * probe over real key streams
  * measured, vs the radix path, per 1 MP:
  *   10k uniques (delta diffs):   3.5 ms vs 23.6   (2^17 slots)
  *   47k uniques (hufman colors): 5.1 ms vs 16.4   (2^19)
@@ -2360,4 +2359,62 @@ EXPORT int64_t approx_rle_encode(const uint8_t *rgb, int64_t n, double allow,
         nrec++;
     }
     return nrec;
+}
+
+/* ------------------------------------------------------------------ */
+/* PNG scanline unfiltering (PNG spec section 9)                       */
+/* ------------------------------------------------------------------ */
+
+static inline uint8_t paeth(int a, int b, int c) {
+    const int p = a + b - c;
+    const int pa = abs(p - a), pb = abs(p - b), pc = abs(p - c);
+    if (pa <= pb && pa <= pc) return (uint8_t)a;
+    if (pb <= pc) return (uint8_t)b;
+    return (uint8_t)c;
+}
+
+/* src: h scanlines of (1 + stride) bytes, each led by its filter type;
+ * dst: h * stride reconstructed bytes; bpp: bytes per complete pixel.
+ * Returns 0, or -1 on an unknown filter type. */
+EXPORT int png_unfilter(const uint8_t *src, int64_t h, int64_t stride,
+                        int64_t bpp, uint8_t *dst) {
+    for (int64_t y = 0; y < h; y++) {
+        const uint8_t *f = src + y * (stride + 1);
+        const uint8_t ft = f[0];
+        const uint8_t *in = f + 1;
+        uint8_t *out = dst + y * stride;
+        const uint8_t *up = y ? out - stride : NULL;
+        int64_t x;
+        switch (ft) {
+        case 0:
+            memcpy(out, in, (size_t)stride);
+            break;
+        case 1:
+            for (x = 0; x < stride; x++)
+                out[x] = (uint8_t)(in[x] + (x >= bpp ? out[x - bpp] : 0));
+            break;
+        case 2:
+            for (x = 0; x < stride; x++)
+                out[x] = (uint8_t)(in[x] + (up ? up[x] : 0));
+            break;
+        case 3:
+            for (x = 0; x < stride; x++) {
+                const int a = x >= bpp ? out[x - bpp] : 0;
+                const int b = up ? up[x] : 0;
+                out[x] = (uint8_t)(in[x] + ((a + b) >> 1));
+            }
+            break;
+        case 4:
+            for (x = 0; x < stride; x++) {
+                const int a = x >= bpp ? out[x - bpp] : 0;
+                const int b = up ? up[x] : 0;
+                const int c = (up && x >= bpp) ? up[x - bpp] : 0;
+                out[x] = (uint8_t)(in[x] + paeth(a, b, c));
+            }
+            break;
+        default:
+            return -1;
+        }
+    }
+    return 0;
 }

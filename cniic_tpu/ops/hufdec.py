@@ -25,16 +25,12 @@ instead of three (left/right/symbol).
 EOF semantics match the host walker: a code cut by the end of the payload
 decodes nothing and the stream yields however many symbols fit.
 
-Economics (measured on v5e, 4x1MP hufman batch — BENCH_NOTES.md): the
-algorithm is correct and fully parallel, but every bit-step is two XLA
-gathers (payload byte, trie edge) and TPU gather throughput measured ~30M
-elements/s — pass 1 alone needs E x payload_bits of them. Result: ~31 s vs
-0.20 s for the host prefix-table decoder (12-bit at the time; 16-bit since r3). This is structural, not a tuning
-gap: TPUs have no fast random-gather unit, and bit-serial entropy decode is
-gather-bound by nature; the TPU-native division of labor is host entropy
-decode + device pixel transforms. The path stays opt-in
-(CNIIC_DEVICE_HUF_DECODE=1), exact (parity-tested against the walker), and
-ready for a stack where gathers are cheap.
+Economics: the algorithm is correct and fully parallel, but every bit-step
+is two XLA gathers (payload byte, trie edge) — pass 1 alone needs
+E x payload_bits of them — so it is gather-bound by nature. Its time on
+the GPU against the host prefix-table decoder is not measured yet
+(ROADMAP.md). The path stays opt-in (CNIIC_DEVICE_HUF_DECODE=1) and exact
+(parity-tested against the walker).
 """
 
 from __future__ import annotations

@@ -22,8 +22,7 @@ RUN_CAP = 255  # RepCount::MAX (hilbertc.rs:127-143)
 def runs_to_records(starts: np.ndarray, n: int, scan: np.ndarray):
     """Closed-form 255-cap splitting: run-start indices -> RLE records.
     A run of length L becomes ceil(L/255) records of 255,...,remainder
-    (hilbertc.rs:127-143). Shared by rle_exact and the device boundary-pass
-    probe (scripts/experiments/device_hist_rle_probe.py)."""
+    (hilbertc.rs:127-143)."""
     lens = np.diff(np.append(starts, n))
     reps = -(-lens // RUN_CAP)  # records per run
     total = int(reps.sum())

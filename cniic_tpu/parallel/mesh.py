@@ -1,7 +1,7 @@
 """Multi-chip scaling (SURVEY.md §2.4): SPMD over a device mesh.
 
 The reference's only parallelism is rayon threads over images
-(bench.rs:22-27). Two TPU axes replace it, both built on the SAME iteration
+(bench.rs:22-27). Two device axes replace it, both built on the SAME iteration
 core as the single-chip path (`ops.kmeans._assign_stats_xla` /
 `_means_div` / `_steal_indices` — VERDICT r1 #4: no forked math):
 
@@ -12,8 +12,8 @@ core as the single-chip path (`ops.kmeans._assign_stats_xla` /
   (the `any(moved > thresh)` loop condition) per iteration. Used
   automatically by `ops.kmeans._drive` when >1 device is visible.
 * **point sharding** (`sharded_kmeans`): one huge image's point set split
-  over chips via `shard_map`, local MXU assignment + local integer digit-
-  plane sums combined with `psum` over ICI, centroids replicated, the
+  over devices via `shard_map`, local matmul assignment + local integer
+  digit-plane sums combined with `psum`, centroids replicated, the
   empty-cluster steal resolved with a masked psum gather. Bit-identical to
   the single-device result (int32 block sums are order-independent —
   tested in tests/test_parallel.py).
@@ -34,28 +34,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.8 top-level API; the experimental path is deprecated
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 jax.config.update("jax_enable_x64", True)
-
-
-def shard_map_unchecked(fn, mesh: Mesh, in_specs, out_specs):
-    """shard_map with the replication (vma/rep) check disabled — required
-    when the body contains pallas_call, whose output shapes carry no vma
-    info (the kwarg name differs across jax versions)."""
-    import inspect
-
-    kwargs = {}
-    params = inspect.signature(shard_map).parameters
-    if "check_vma" in params:
-        kwargs["check_vma"] = False
-    elif "check_rep" in params:
-        kwargs["check_rep"] = False
-    return shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                     **kwargs)
 
 
 def make_mesh(n_devices: int | None = None) -> Mesh:
@@ -95,7 +76,7 @@ def _sharded_burst(mesh: Mesh, k: int, d: int, n_loc: int, bs: int, vp: int,
                    wp: int, pk: int, pw: int, split: int, wide: bool,
                    burst: int, stall_lim: int):
     """shard_map'd burst of full k-means iterations; points sharded on the
-    batch axis, centroids replicated, statistics psum'd over ICI. Carries
+    batch axis, centroids replicated, statistics psum'd. Carries
     the same per-iteration plateau net as the single-chip loops so results
     stay bit-identical."""
     from ..ops import kmeans as km

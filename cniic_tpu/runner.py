@@ -131,9 +131,8 @@ def measure_all(codec: Codec, paths, output_dir: str = "output",
                 # fan-out bench.rs:22-27 as overlap): group N+1's encode —
                 # host C histograms/LZ with the GIL released, device
                 # dispatches — runs in a worker thread while the main
-                # thread decodes, verifies and writes group N. On a
-                # one-vCPU host the win is the device-wait windows; on a
-                # real host every C stage overlaps.
+                # thread decodes, verifies and writes group N: device
+                # waits and the GIL-free C stages overlap.
                 from concurrent.futures import ThreadPoolExecutor
 
                 with ThreadPoolExecutor(max_workers=1) as ex:
@@ -206,8 +205,9 @@ def _verify_group(codec: Codec, loaded, output_dir: str, res: BenchResult,
     try:
         t1 = time.perf_counter()
         if fused is not None:
-            # fused device decode+MSE: only error scalars cross the link on
-            # the timed path; images stay in HBM until the PNG save needs them
+            # fused device decode+MSE: only error scalars reach the host on
+            # the timed path; images stay on the device until the PNG save
+            # needs them
             mses, fused_fetch = fused([blobs[i] for i in ok_idx],
                                       [imgs[i] for i in ok_idx])
             res.decode_s += time.perf_counter() - t1

@@ -10,8 +10,7 @@ Explains each corpus's lossy-chart offsets from first principles:
   codec = 0.75-0.81x proxy on the smooth corpus, 1.60-1.69x on the
   textured one — above 1 exactly when fine texture makes the decoder's
   positional-only wrapped-u32 cells diverge from the 5-D encode
-  clusters whose centroid colors they reuse; see BENCH_NOTES.md
-  "textured-corpus parity table");
+  clusters whose centroid colors they reuse);
 - unique-color count and the share of pixels within the dominant
   color mode (8-px-radius ball around the most common quantized color)
   — what the unique-color-weighted k-means sees, i.e. whether

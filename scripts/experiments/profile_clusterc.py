@@ -3,8 +3,7 @@
 
 Splits the production encode_batch path (codecs/clusterc.py) into its four
 stages over real ns1000 chunks and reports per-stage seconds + the k-means
-iteration counts (the follow-up measurement promised in BENCH_NOTES "the
-north star measured at its own scale").
+iteration counts.
 
 Usage: python scripts/experiments/profile_clusterc.py [--lanes=8] [--chunks=2]
        [--k=32] <pngs...>

@@ -34,7 +34,7 @@ import time
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")  # never claim the TPU
+jax.config.update("jax_platforms", "cpu")  # host-only campaign
 
 import numpy as np  # noqa: E402
 

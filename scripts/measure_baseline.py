@@ -1,18 +1,19 @@
 """Measure the single-core host-CPU baseline for bench.py's vs_baseline.
 
-The reference binary cannot be built in-container (no rustc/cargo, zero
-egress — BENCH_NOTES.md documents the blocker), so the measured baseline is
-this framework itself on the **CPU backend of the same host**: identical
-algorithms, identical streams, one slow vCPU — the same class of machine the
-single-core Rust reference would run on. For the LZ/Huffman/RLE families the
+The reference binary cannot be built in-container (no rustc/cargo, no
+network), so the measured baseline is this framework itself on the **CPU
+backend of the same host**: identical algorithms, identical streams, one
+core — the same class of machine the single-core Rust reference would run
+on. For the LZ/Huffman/RLE families the
 hot loops are the same C the production path uses (the reference's own
 algorithms), so the baseline if anything *over*-states the Rust's speed (our
 C engines carry optimizations the reference lacks: ringless LZ77 history,
 AVX2 candidate prefilter, radix histograms); for the k-means codecs the
 dense XLA formulation runs on the host CPU. vs_baseline is therefore a
-conservative, reproducible measurement of what the TPU buys per codec.
+conservative, reproducible measurement of what the accelerator buys per
+codec.
 
-Run ALONE on the bench host (the single vCPU makes concurrent timings lie):
+Run ALONE on the bench host (concurrent timings lie):
 
     python scripts/measure_baseline.py          # writes BASELINE_HOST.json
 
@@ -51,7 +52,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")  # never claim the TPU
+jax.config.update("jax_platforms", "cpu")  # the host-CPU baseline
 
 import numpy as np  # noqa: E402
 
@@ -129,8 +130,7 @@ def main() -> int:
             # hilbert-rle at 137 MP/s, while the same C at corpus scale
             # (fresh images every chunk, first-chunk allocator growth
             # included — both exactly as in the numerator's run) runs
-            # 60-90 MP/s (scripts/experiments/probe_cleg_scale.py;
-            # BENCH_NOTES r5 follow-up). Matching protocols is the only
+            # 60-90 MP/s. Matching protocols is the only
             # reading under which "same C on both sides" nets ~1.0.
             sample = _corpus_sample(corpus_paths, _CORPUS_DEFAULT_N)
             # every fast leg uses the same default sample — record it once
@@ -175,8 +175,8 @@ def main() -> int:
             # is keyed by the UNIQUE-COLOR statistics (point-count padding
             # bucket, weight digit planes), which easy synthetic content
             # does not reproduce, so its timed region was eating the XLA-CPU
-            # compile (r5; the TPU side had the same bug at scale — see
-            # ops/kmeans.py burst/d2b quantization). Warm it on the real
+            # compile (see the ops/kmeans.py burst quantization). Warm it
+            # on the real
             # sample itself: exact keys by construction, and excluding
             # compile only makes the denominator FASTER (conservative).
             if codec.name.startswith("cluster-colors"):
@@ -191,8 +191,7 @@ def main() -> int:
         # fast C legs then get median-of-3 timed passes: the r5 NS table
         # carried two starred sub-1x readings (hilbert-rle 0.31x) traced to
         # a single-pass baseline reading 135 MP/s where best-of-3 probes on
-        # the same sample read 79-85 — the documented 1.5-2x shared-vCPU
-        # swing. Median-of-3 removes that noise in BOTH directions; the
+        # the same sample read 79-85 — the host's run-to-run swing. Median-of-3 removes that noise in BOTH directions; the
         # k-means legs (minutes per pass) stay single-pass, gated on the
         # first pass' cost so the rule is mechanical, not per-codec.
         codec.encode_batch(warm)

@@ -145,8 +145,7 @@ def test_hilbert_zip_frames_dims_outside(test_image):
     assert data[:8] == wire.pack_dims(w, h)
 
 
-def test_encode_batch_matches_sequential(rng, test_image, monkeypatch):
-    monkeypatch.setenv("CNIIC_PALLAS_RLE", "1")  # exercise the Pallas path
+def test_encode_batch_matches_sequential(rng, test_image):
     imgs = [test_image, test_image[:17, :23].copy(),
             rng.integers(0, 256, (9, 31, 3)).astype(np.uint8)]
     for spec in ["hilbert(rle(4))", "hufman", "delta", "hilbert(rle)"]:

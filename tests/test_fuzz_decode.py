@@ -10,7 +10,7 @@ subclass) — never a crash, hang, MemoryError-scale allocation, or silent
 type confusion.
 
 ``make asan-fuzz`` reruns exactly this file against an
-address-sanitized build of the C engines (result recorded in BENCH_NOTES).
+address-sanitized build of the C engines.
 
 Reference decode surface: codec.rs:16 (decode returns Option — malformed
 input is a recoverable failure, not UB), back.rs:648-706, huf.rs parse.

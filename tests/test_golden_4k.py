@@ -3,10 +3,10 @@
 The reference's k-means handles any point count (kmeans.rs:21-39); after
 the r4 cap lift ours does too. This pins the capability end-to-end: the
 committed `tests/fixtures/voronoi128_synth4k.bin` is the voronoi(128)
-stream of a deterministic 3840x2160 synthetic image, captured on TPU
-hardware (2026-08-17; encode 320 s cold / CLI evidence in BENCH_NOTES).
-Every k-means stage is integer-exact, so the CPU backend must reproduce
-the identical decode; the MSE pin is an exact f64 equality.
+stream of a deterministic 3840x2160 synthetic image, captured on an
+accelerator and reproduced on an H100 by chip_smoke.py (phase c). Every
+k-means stage is integer-exact, so the CPU backend must reproduce the
+identical decode; the MSE pin is an exact f64 equality.
 
 The image regenerates from seed in-process (the 10 MB PNG is not
 committed); `make synth-4k` writes it to data/4k/ for hardware runs.

@@ -308,7 +308,7 @@ def test_hist_u32_adaptive_tiers_agree(rng):
     n = 1 << 20
     # pool sizes whose realized unique counts land in the three hash tiers
     # and the radix regime (measured ds ≈ 15.5k at 47k uniques, ≈ 25k at
-    # 250k, > 26k beyond ~320k — BENCH_NOTES "adaptive hash-histogram")
+    # 250k, > 26k beyond ~320k)
     for space in (5_000, 47_000, 250_000, 420_000):
         pool = rng.integers(0, 1 << 24, space, dtype=np.uint64
                             ).astype(np.uint32)

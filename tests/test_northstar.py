@@ -1,7 +1,7 @@
 """North-star corpus driver (scripts/experiments/northstar.py): accounting
 and checkpoint/resume.
 
-The measurement of record (NORTHSTAR_r05.json) runs for ~an hour over 1000
+A corpus-scale measurement runs for ~an hour over 1000
 images, so the checkpoint path is load-bearing: a killed run must continue
 from the last completed chunk with identical accumulators, and a corpus
 change must invalidate the checkpoint rather than silently merge two

@@ -1,7 +1,7 @@
 """Differential oracle vs the reference implementation (VERDICT r1 #2).
 
-No Rust toolchain exists in this container (no rustc/cargo, zero egress —
-see BENCH_NOTES.md "Reference oracle"), so the reference binary cannot be
+No Rust toolchain exists in this container (no rustc/cargo, no network),
+so the reference binary cannot be
 built and run directly. What CAN be checked without it:
 
 1. **Huffman stream sizes are provably equal to the reference's.** The
